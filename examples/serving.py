@@ -1,6 +1,6 @@
 """Worked examples: the seven production usage patterns.
 
-Run on CPU (JAX_PLATFORMS=cpu) or TPU; every section is self-contained.
+Run on CPU (JAX_PLATFORMS=cpu) or a GPU; every section is self-contained.
 
     PYTHONPATH=. python examples/serving.py
 """

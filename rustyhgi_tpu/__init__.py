@@ -1,11 +1,12 @@
-"""rustyhgi_tpu — a TPU-native Hierarchical Grid Interpolation image codec.
+"""rustyhgi_tpu — a Hierarchical Grid Interpolation image codec in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 pl0q1n/RustyHGI (Gashnikov/Glumov/Sergeev 2010 hierarchical grid
 interpolation compression): pyramid decimation, Crossed interpolation,
 fixed-max-error linear quantization, entropy-coded container — built for
-TPU from the start (dense lattice kernels, SPMD batch sharding over device
-meshes, host-side native entropy stages).
+an accelerator from the start (dense lattice programs, SPMD batch
+sharding over device meshes, host-side native entropy stages); it runs
+on an NVIDIA GPU.
 
 Public API::
 

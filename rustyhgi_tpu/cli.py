@@ -3,15 +3,17 @@
 Mirrors the reference CLI surface (reference: src/options.rs:13-65,
 src/main.rs:41-128): ``encode``/``decode``/``test`` subcommands with
 ``-i/-o/-l/-q/-s`` flags, same defaults (level=4, quantizator=medium,
-case-insensitive), plus TPU-framework extras: ``--format hgi|thgi``,
-``--backend jax|oracle|native``, ``--engine auto|planar|pallas|xla``
-(force a device engine; all bit-identical), and a ``bench`` subcommand.
+case-insensitive), plus extras: ``--format hgi|thgi``,
+``--backend jax|oracle|native``, ``--engine auto|planar|xla`` (force a
+device engine; all bit-identical), tiled gigapixel encode/decode, and a
+``bench`` subcommand.  Binary PGM (``.pgm``) images need only numpy;
+other image formats use Pillow.
 
 Usage::
 
-    python -m rustyhgi_tpu encode -i in.png -o out.hgi -l 4 -q medium
-    python -m rustyhgi_tpu decode -i out.hgi -o roundtrip.png
-    python -m rustyhgi_tpu test res/LENA.TIF -l 4 -q lossless
+    python -m rustyhgi_tpu encode -i in.pgm -o out.hgi -l 4 -q medium
+    python -m rustyhgi_tpu decode -i out.hgi -o roundtrip.pgm
+    python -m rustyhgi_tpu test in.pgm -l 4 -q lossless
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import sys
 import numpy as np
 
 from .models.codec import HGICodec
+from .ops.engine import ENGINES
 from .ops.quantizers import QuantizationLevel
 from .utils.container import Archive, read_archive, write_archive
 from .utils.imageio import load_luma, save_gray
@@ -42,11 +45,11 @@ def _add_encoding_options(p: argparse.ArgumentParser) -> None:
         "--backend",
         choices=("jax", "oracle", "native"),
         default="jax",
-        help="compute backend (jax = TPU/XLA path)",
+        help="compute backend (jax = the device engines)",
     )
     p.add_argument(
         "--engine",
-        choices=("auto", "planar", "pallas", "xla"),
+        choices=ENGINES,
         default="auto",
         help="jax backend only: force a device engine (auto routes the "
         "fastest supported one; all engines are bit-identical)",
@@ -60,8 +63,8 @@ def _add_encoding_options(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--fast",
         action="store_true",
-        help="thgi only: device-coded fast mode (fused Pallas encode + "
-        "lane-parallel device rANS; no host entropy crunch)",
+        help="thgi only: device-coded fast mode (device encode + "
+        "lane-parallel device rANS in one program; no host entropy crunch)",
     )
     p.add_argument(
         "--predictor",
@@ -156,7 +159,7 @@ def cmd_encode(args) -> int:
         args.level, quant, predictor=args.predictor, backend=engine
     )
     if args.format == "thgi" and args.fast and args.backend == "jax":
-        # One fused device program (Pallas encode + device rANS); only
+        # One fused device program (encode + device rANS); only
         # entropy-CODED bytes cross the host<->device link.
         with open(args.output, "wb") as f:
             f.write(codec.write_fast(image))
@@ -262,8 +265,11 @@ def cmd_test(args) -> int:
     print(f"Ratio:        {uncompressed / len(blob):.2f}")
     print(f"SD:           {float(sd) ** 0.5:.2f}")
 
-    stem = os.path.splitext(os.path.basename(args.input))[0] + args.suffix
-    save_gray(stem + ".png", decoded)
+    # The decoded image is a PNG like the reference's, or a PGM for a PGM
+    # input (which keeps the command free of imaging libraries).
+    root, in_ext = os.path.splitext(os.path.basename(args.input))
+    stem = root + args.suffix
+    save_gray(stem + (".pgm" if in_ext.lower() == ".pgm" else ".png"), decoded)
     ext = "." + args.format
     with open(stem + ext, "wb") as f:
         f.write(blob)
@@ -381,11 +387,11 @@ def cmd_encode_tiled(args) -> int:
     if engine != "auto":
         # Fail fast on coverage: the sharded retry tier below retries
         # transient device errors, and a config error never succeeds.
-        from .ops.quantizers import quantize_fn as _qfn
-        from .parallel.sharded import _engine_for as _ef
+        from .ops.engine import choose_engine
+        from .ops.quantizers import quantize_fn
 
-        _ef(args.level, args.tile, args.tile, _qfn(quant), args.predictor,
-            engine=engine)
+        choose_engine(engine, args.level, args.tile, args.tile,
+                      quantize_fn(quant), args.predictor)
     codec = HGICodec(
         args.level, quant, predictor=args.predictor, backend=engine
     )
@@ -411,7 +417,7 @@ def cmd_encode_tiled(args) -> int:
             )
     if fast:
         # Fused fast tier for the gigapixel path: each chunk of tiles is
-        # ONE device program (Pallas encode + lane-parallel device rANS,
+        # ONE device program (encode + lane-parallel device rANS,
         # models.codec.write_fast_batch) and only entropy-coded bytes
         # cross the link; every block is byte-identical to write_fast on
         # that tile, so --resume and decode-tiled compose unchanged.
@@ -501,7 +507,7 @@ def cmd_bench(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="rustyhgi_tpu",
-        description="TPU-native hierarchical grid interpolation image codec",
+        description="hierarchical grid interpolation image codec",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -584,7 +590,16 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     try:
+        engine, backend = getattr(args, "engine", "auto"), getattr(args, "backend", "jax")
+        if engine != "auto" and backend != "jax":
+            raise ValueError(
+                f"--engine {engine} applies to --backend jax only, "
+                f"not --backend {backend}"
+            )
         return args.fn(args)
     except Exception as e:  # main.rs:130-133 error surface
         print(f"An error occured: {e}", file=sys.stderr)

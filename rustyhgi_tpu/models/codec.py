@@ -6,10 +6,9 @@ JAX way: a codec instance is a bundle of jit-compiled, shape-specialized
 device functions (compute path) plus host-side container/entropy stages
 (rustyhgi_tpu.utils.container).
 
-Device compute routes through three bit-identical engines by speed
-policy (see :meth:`HGICodec._engine`): :mod:`rustyhgi_tpu.ops.planar`
-(production on TPU), :mod:`rustyhgi_tpu.ops.pallas_codec` (fused
-kernel), and :mod:`rustyhgi_tpu.ops.pyramid` (dyadic XLA fallback).
+Device compute routes through two bit-identical engines, chosen by
+:func:`rustyhgi_tpu.ops.engine.choose_engine`: :mod:`rustyhgi_tpu.ops.planar`
+(planar dataflow) and :mod:`rustyhgi_tpu.ops.pyramid` (dyadic lattices).
 Compiled executables are cached per input shape; first call per shape
 pays XLA compile time, subsequent calls are pure device execution.
 """
@@ -22,7 +21,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops import pyramid
+from ..ops import planar, pyramid
+from ..ops.engine import ENGINES, choose_engine
 from ..ops.predictors import predictor_fn, predictor_tag
 from ..ops.quantizers import QuantizationLevel, linear_error, quantize_fn
 from ..utils.container import Archive, Interpolation, Metadata
@@ -54,11 +54,13 @@ class CodecMetrics(dict):
 
 
 class HGICodec:
-    """Hierarchical Grid Interpolation codec, TPU-native.
+    """Hierarchical Grid Interpolation codec on an accelerator.
 
     Parameters mirror the reference CLI surface (options.rs:53-65):
     ``levels`` is the pyramid depth (--level, default 4) and
     ``quantization`` the quality preset (--quantizator, default medium).
+    ``backend`` picks the device engine: "auto" (ops.engine policy),
+    "planar" or "xla" (the dyadic engine); all give the same bytes.
     """
 
     def __init__(
@@ -73,10 +75,8 @@ class HGICodec:
             quantization = QuantizationLevel.parse(quantization)
         if not 0 <= levels <= 16:
             raise ValueError(f"levels must be in [0, 16], got {levels}")
-        if backend not in ("auto", "xla", "pallas", "planar"):
-            raise ValueError(
-                f"backend must be auto/xla/pallas/planar, got {backend!r}"
-            )
+        if backend not in ENGINES:
+            raise ValueError(f"backend must be one of {ENGINES}, got {backend!r}")
         self.levels = int(levels)
         self.quantization = quantization
         self.predictor = predictor
@@ -87,48 +87,17 @@ class HGICodec:
         self._encode_cache: Dict[Tuple[int, int], jax.stages.Wrapped] = {}
         self._decode_cache: Dict[Tuple[int, int], jax.stages.Wrapped] = {}
 
-    def _engine(self, shape: Tuple[int, int], need_quantize: bool) -> str:
-        """Engine choice for this config: "planar" | "pallas" | "xla".
-
-        All engines are bit-identical to the oracle, so this is pure
-        speed policy.  ``auto`` on TPU prefers the planar-XLA engine
-        (ops.planar — the kernel's planar dataflow as one whole-canvas
-        jit; ~84-87 GPix/s subband medians vs the kernel's ~53-54
-        across r5 runs, BENCH_DETAILS.json), then the fused Pallas
-        kernel, then the dyadic XLA path.  Off-TPU auto keeps the
-        dyadic XLA path (CPU fusion favors it); explicit backends
-        force.
-        """
+    def _engine(self, shape: Tuple[int, ...], need_quantize: bool) -> str:
+        """Engine for an [H, W] or [B, H, W] input (ops.engine policy)."""
         quant = self._quantize_fn() if need_quantize else None
-        h, w = shape
-        if self.backend == "xla":
-            return "xla"
-        if self.backend in ("planar", "pallas"):
-            from ..ops import pallas_codec, planar
-
-            ok = (
-                planar.supported_planar(self.levels, h, w, quant, self.predictor)
-                if self.backend == "planar"
-                else pallas_codec.supported(self.levels, h, w, quant,
-                                            self.predictor)
+        h, w = shape[-2:]
+        batch = shape[0] if len(shape) == 3 else 1
+        try:
+            return choose_engine(
+                self.backend, self.levels, h, w, quant, self.predictor, batch
             )
-            if not ok:
-                raise ValueError(
-                    f"backend={self.backend!r} requested but the engine does "
-                    f"not cover levels={self.levels}, shape={shape}, "
-                    f"quantizer={self.quantizer!r}, "
-                    f"predictor={self.predictor!r}"
-                )
-            return self.backend
-        if jax.default_backend() != "tpu":
-            return "xla"
-        from ..ops import pallas_codec, planar
-
-        if planar.supported_planar(self.levels, h, w, quant, self.predictor):
-            return "planar"
-        if pallas_codec.supported(self.levels, h, w, quant, self.predictor):
-            return "pallas"
-        return "xla"
+        except ValueError as e:
+            raise ValueError(f"backend={self.backend!r} requested but {e}") from None
 
     def _quantize_fn(self):
         return quantize_fn(self.quantization, self.quantizer)
@@ -139,21 +108,10 @@ class HGICodec:
         fn = self._encode_cache.get(shape)
         if fn is None:
             levels, quant = self.levels, self._quantize_fn()
-            engine = self._engine(shape[-2:], need_quantize=True)
-            pred_name = self.predictor
-            if engine == "planar":
-                from ..ops.planar import encode_plane_planar
-
+            if self._engine(shape, need_quantize=True) == "planar":
+                pred_name = self.predictor
                 fn = jax.jit(
-                    lambda img: encode_plane_planar(
-                        img, levels, quant, pred_name
-                    )
-                )
-            elif engine == "pallas":
-                from ..ops.pallas_codec import encode_plane_pallas
-
-                fn = jax.jit(
-                    lambda img: encode_plane_pallas(
+                    lambda img: planar.encode_plane_planar(
                         img, levels, quant, pred_name
                     )
                 )
@@ -169,19 +127,12 @@ class HGICodec:
         fn = self._decode_cache.get(shape)
         if fn is None:
             levels = self.levels
-            engine = self._engine(shape[-2:], need_quantize=False)
-            pred_name = self.predictor
-            if engine == "planar":
-                from ..ops.planar import decode_plane_planar
-
+            if self._engine(shape, need_quantize=False) == "planar":
+                pred_name = self.predictor
                 fn = jax.jit(
-                    lambda grid: decode_plane_planar(grid, levels, pred_name)
-                )
-            elif engine == "pallas":
-                from ..ops.pallas_codec import decode_plane_pallas
-
-                fn = jax.jit(
-                    lambda grid: decode_plane_pallas(grid, levels, pred_name)
+                    lambda grid: planar.decode_plane_planar(
+                        grid, levels, pred_name
+                    )
                 )
             else:
                 pred = self._predictor_fn
@@ -195,9 +146,8 @@ class HGICodec:
         """uint8 [H, W] (or [B, H, W]) image -> (residual grid, reconstruction).
 
         Pure device computation.  Batched inputs go straight to the
-        backend's native batch entry (never through ``jax.vmap``): the
-        fused Pallas kernel runs batch as a grid dimension, and the XLA
-        path maps over leading dims natively.
+        engine's own batch entry (the planar engine vmaps over planes;
+        the dyadic engine maps over leading dims natively).
         """
         image = jnp.asarray(image, dtype=jnp.uint8)
         if image.ndim not in (2, 3):
@@ -214,38 +164,20 @@ class HGICodec:
     def encode_subbands(self, image):
         """uint8 [H, W] image -> (anchors, subbands, recon) on device.
 
-        The subband layout is the kernel's natural output (per-level packed
-        residual quads) and skips the full-plane grid assembly — the
-        fastest complete encode; pair with the .thgi subband container.
-        On TPU the fused Pallas kernel emits the subbands directly
-        (ops.pallas_codec.encode_subbands_pallas, bit-identical); outside
-        its envelope the XLA dyadic path serves.
+        The subband layout is the engine's natural output (per-level
+        packed residual quads) and skips the full-plane grid assembly —
+        the fastest complete encode; pair with the .thgi subband
+        container.
         """
         image = jnp.asarray(image, dtype=jnp.uint8)
         key = ("sb",) + image.shape
         fn = self._encode_cache.get(key)
         if fn is None:
-            from ..ops.pallas_codec import supported_subbands
-
             levels, quant = self.levels, self._quantize_fn()
-            h, w = image.shape[-2:]
-            engine = self._engine((h, w), need_quantize=True)
-            pred_name = self.predictor
-            if engine == "planar":
-                from ..ops.planar import encode_subbands_planar
-
+            if self._engine(image.shape, need_quantize=True) == "planar":
+                pred_name = self.predictor
                 fn = jax.jit(
-                    lambda img: encode_subbands_planar(
-                        img, levels, quant, pred_name
-                    )
-                )
-            elif engine == "pallas" and supported_subbands(
-                levels, h, w, quant, self.predictor
-            ):
-                from ..ops.pallas_codec import encode_subbands_pallas
-
-                fn = jax.jit(
-                    lambda img: encode_subbands_pallas(
+                    lambda img: planar.encode_subbands_planar(
                         img, levels, quant, pred_name
                     )
                 )
@@ -258,41 +190,25 @@ class HGICodec:
         return fn(image)
 
     def decode_subbands(self, anchors, subbands, shape):
-        """Subband layout -> uint8 [H, W] image on device.
+        """Subband layout -> uint8 [H, W] (or [B, H, W]) image on device.
 
-        Under auto on TPU this is the subband-direct Pallas path: a
-        no-halo repack kernel (subband quads -> grid words) feeding the
-        fused grid decode kernel, both in one jit — bit-identical to the
-        XLA decode, which serves outside the kernel envelope.
+        No grid assembly; ``shape`` is the plane's (H, W).
         """
-        key = ("sb", tuple(shape))  # subband shapes derive from shape+levels
+        # Subband shapes derive from (batch, shape, levels).
+        batch = jnp.shape(anchors)[:-2]
+        key = ("sb",) + tuple(batch) + tuple(shape)
         fn = self._decode_cache.get(key)
         if fn is None:
-            from ..ops.pallas_codec import supported_subbands
-
-            levels, pred = self.levels, self._predictor_fn
-            h, w = tuple(shape)[-2:]
-            engine = self._engine((h, w), need_quantize=False)
-            pred_name = self.predictor
-            if engine == "planar":
-                from ..ops.planar import decode_subbands_planar
-
+            levels = self.levels
+            if self._engine(key[1:], need_quantize=False) == "planar":
+                pred_name = self.predictor
                 fn = jax.jit(
-                    lambda a, s: decode_subbands_planar(
-                        a, s, shape, levels, pred_name
-                    )
-                )
-            elif engine == "pallas" and supported_subbands(
-                levels, h, w, None, self.predictor
-            ):
-                from ..ops.pallas_codec import decode_subbands_pallas
-
-                fn = jax.jit(
-                    lambda a, s: decode_subbands_pallas(
+                    lambda a, s: planar.decode_subbands_planar(
                         a, s, shape, levels, pred_name
                     )
                 )
             else:
+                pred = self._predictor_fn
                 fn = jax.jit(
                     lambda a, s: pyramid.decode_subbands(
                         a, s, shape, levels, pred
@@ -304,20 +220,11 @@ class HGICodec:
     def _grid_only_fn(self, shape: Tuple[int, ...]):
         """Residual-grid-only encode (no recon output) for the fast path."""
         levels, quant = self.levels, self._quantize_fn()
-        engine = self._engine(shape[-2:], need_quantize=True)
-        pred_name = self.predictor
-        if engine == "planar":
-            from ..ops.planar import encode_plane_planar
+        if self._engine(shape, need_quantize=True) == "planar":
+            pred_name = self.predictor
 
             def _grid(img):
-                return encode_plane_planar(
-                    img, levels, quant, pred_name, want_recon=False
-                )[0]
-        elif engine == "pallas":
-            from ..ops.pallas_codec import encode_plane_pallas
-
-            def _grid(img):
-                return encode_plane_pallas(
+                return planar.encode_plane_planar(
                     img, levels, quant, pred_name, want_recon=False
                 )[0]
         else:
@@ -331,8 +238,8 @@ class HGICodec:
     def write_fast(self, image) -> bytes:
         """Fastest encode-to-archive: one fused device program.
 
-        The fused Pallas whole-pyramid encode and the lane-parallel
-        device rANS (ops.tpurans) run as a SINGLE jit — the residual
+        The whole-pyramid encode and the lane-parallel device rANS
+        (ops.tpurans) run as a SINGLE jit — the residual
         grid never round-trips to the host, and only entropy-coded bytes
         ever cross the host<->device link.  Counts/states/table ride
         header rows of the same buffer (encode_device_packed) and the
@@ -367,8 +274,7 @@ class HGICodec:
         """Batched :meth:`write_fast`: [B, H, W] -> list of .thgi blobs.
 
         ONE device program encodes and entropy-codes every plane (the
-        Pallas kernel runs batch as a grid dimension; the device rANS is
-        vmapped over it), and ONE prefix transfer brings back all B
+        engine's batch entry; the device rANS is vmapped over it), and ONE prefix transfer brings back all B
         payload heads.  Each returned blob is byte-identical to
         ``write_fast`` on that plane alone — per-plane frequency tables,
         independent streams — so the batch path composes with the
@@ -476,9 +382,10 @@ class HGICodec:
         """Ahead-of-time warm-up: compile encode/decode for given shapes.
 
         Serving deployments call this once at startup so no request pays
-        XLA compile time; combined with a persistent compilation cache
-        (``jax.config.update("jax_compilation_cache_dir", ...)``) the
-        executables also survive process restarts.  Returns self.
+        XLA compile time; combined with the persistent compilation cache
+        (:func:`rustyhgi_tpu.utils.compile_cache.enable_compile_cache`,
+        which the CLI turns on) the executables also survive process
+        restarts.  Returns self.
         """
         for shape in shapes:
             zero = jnp.zeros(shape, jnp.uint8)

@@ -5,6 +5,6 @@ The compute-path counterpart of the reference's pluggable math layer
 the entropy stages that back the containers.
 """
 
-from . import entropy, pallas_kernels, predictors, pyramid, quantizers
+from . import entropy, predictors, pyramid, quantizers
 
-__all__ = ["entropy", "pallas_kernels", "predictors", "pyramid", "quantizers"]
+__all__ = ["entropy", "predictors", "pyramid", "quantizers"]

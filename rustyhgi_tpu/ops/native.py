@@ -255,7 +255,7 @@ _RANS_TPU_ERRORS = {
 
 
 def native_rans_tpu_decode(data: bytes, n: int) -> np.ndarray:
-    """Decode a lane-parallel TPU rANS payload (ops.tpurans format).
+    """Decode a lane-parallel device rANS payload (ops.tpurans format).
 
     ``n`` is the header-derived expected size (bomb guard); bit-identical
     accept/reject behavior to the NumPy mirror in ops/tpurans.py.

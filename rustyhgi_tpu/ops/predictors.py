@@ -1,6 +1,6 @@
 """Interpolation predictors.
 
-TPU-native counterparts of the reference's pluggable interpolator
+Device counterparts of the reference's pluggable interpolator
 strategies (reference: src/interpolator.rs):
 
 * ``crossed`` — the production predictor (interpolator.rs:57-91): mean of

@@ -1,4 +1,4 @@
-"""TPU-native lattice-pyramid codec core (pure JAX/XLA).
+"""Dyadic lattice-pyramid codec engine (pure JAX/XLA).
 
 This module re-designs the reference's scalar per-pixel sweep
 (reference: src/encoder.rs:39-71, src/decoder.rs:18-46, src/utils.rs:12-41)
@@ -13,12 +13,11 @@ SURVEY.md §3.5:
    the pixel sits inside the cell.  All three refined pixels of a cell
    share one prediction.
 
-**Dyadic layout (the TPU speed-of-light story).**  The naive vectorization
-(strided slices ``img[::s, ::s]`` + 2x upsamples per level) is correct but
-catastrophically slow on TPU: a lane-dimension strided slice lowers to a
-~165x-slower relayout than an elementwise op (measured ~7 GB/s vs
-~1.2 TB/s on v5e).  Instead, every dyadic move here is expressed with
-TPU-cheap primitives only:
+**Dyadic layout.**  The naive vectorization (strided slices
+``img[::s, ::s]`` + 2x upsamples per level) is correct; this module
+instead expresses every dyadic move with reshapes and bitcasts, which
+were cheap on the hardware it was first built for (whether they still
+pay on the GPU is an open question, see PERF.md):
 
 * downsample-by-2: ``reshape(h/2, 2, w)`` + minor-dim slice (no strides);
 * split a fine lattice into its 4 parity quads: bitcast byte pairs to
@@ -286,10 +285,7 @@ def encode_subbands(
     reconstruction equals the source exactly, every level predicts from
     the pyramid's own source lattice and the recon interleave chain
     disappears entirely.  The emitted residuals are bit-identical to the
-    closed-loop form.  Note on perf: even this form is compute-bound on
-    v5e at ~10x above the 2-HBM-pass floor (see README roofline) — the
-    dyadic relayout ops dominate; the Pallas fused kernel
-    (ops.pallas_codec) exists to close that gap.
+    closed-loop form.
     """
     if predictor is None:
         predictor = cell_prediction
@@ -308,8 +304,7 @@ def encode_subbands(
         # coarser lattice each level predicts from is the pyramid's own
         # source lattice — already computed by _quad_pyramid.  Skipping
         # the recon interleave chain removes the whole closed-loop
-        # dependency chain (XLA fuses much more; still compute-bound at
-        # ~10x the 2-HBM-pass floor on v5e — see README roofline).
+        # dependency chain (XLA fuses much more).
         subbands = []
         for level in range(levels):
             pred = predictor(lattices[levels - level].astype(_I32))

@@ -1,8 +1,8 @@
 """Residual quantizers.
 
-TPU-native re-design of the reference's quantizer strategies
+Device re-design of the reference's quantizer strategies
 (reference: src/quantizator.rs:1-73).  The reference materializes a 256-entry
-LUT indexed by the wrapped residual byte; on TPU we prefer the closed-form
+LUT indexed by the wrapped residual byte; on the device we prefer the closed-form
 arithmetic (integer multiply/shift after XLA strength reduction) which fuses
 into the per-level elementwise kernel, but we also expose the LUT for
 table-driven quantizers and for the host oracle.

@@ -1,12 +1,12 @@
 """Lane-parallel interleaved rANS for the device (pure jnp encode).
 
 The host rANS (ops.entropy / native/rans.cpp) is 16-way SIMD; this module
-is its TPU-native counterpart: **hundreds to thousands of independent
+is its device counterpart: **hundreds to thousands of independent
 rANS lanes advanced in lockstep by one ``lax.scan``** — the entropy stage
 the reference runs on the CPU (reference: src/archive.rs:36-38) re-shaped
 for a vector machine.  It exists so ``HGICodec.write_fast`` can entropy-
-code residuals *on the chip*, inside the same jit program as the encode
-kernel: only entropy-reduced bytes ever cross the host<->device link.
+code residuals *on the device*, inside the same jit program as the
+encode: only entropy-reduced bytes ever cross the host<->device link.
 
 Design (same constants as the host coder: M = 2**14, u32 states, u16
 word renorm, at most one emission per symbol):
@@ -27,7 +27,7 @@ word renorm, at most one emission per symbol):
   ``sum(counts)`` words, zero padding;
 * the host finalizer is pure framing: headers + one ``tobytes``.
 
-Encode runs identically compiled (TPU) and on CPU (tests).  The decoder
+Encode is plain jnp and runs on any backend.  The decoder
 is vectorized NumPy — lanes advance in lockstep, one Python step per
 symbol row — fast enough for the read path and trivially auditable.
 
@@ -150,14 +150,11 @@ def _normalize_device(counts: jnp.ndarray) -> jnp.ndarray:
 def _lookup_packed(sym: jnp.ndarray, packed: jnp.ndarray) -> jnp.ndarray:
     """``packed[sym]`` for a [T, L] i32 symbol block, without gathers.
 
-    XLA TPU lowers a real gather of millions of indices to a serial loop
-    (measured ~8 ns/element — 30+ ms per 1080p plane); this nibble-split
-    one-hot selection is pure VPU compare/select/sum arithmetic instead:
-    32 fused ops per element, ~60x faster.  ``packed`` is any i32[256]
-    table (values must fit i32).  (Chunking this over 8/64-row scan
-    blocks to shrink the one-hot intermediates was tried and measured
-    SLOWER — 2.6-2.9 vs 1.7 ms on the 1080p stage; XLA fuses the
-    whole-block form better than a scan boundary allows.)
+    This nibble-split one-hot selection is pure compare/select/sum
+    arithmetic (32 fused ops per element) in place of a gather of
+    millions of indices; whether a real gather is faster on the GPU is
+    not measured.  ``packed`` is any i32[256] table (values must fit
+    i32).
     """
     tbl = packed.reshape(16, 16)
     lo = sym & 15

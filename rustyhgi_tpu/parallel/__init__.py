@@ -1,7 +1,7 @@
 """SPMD tier: device meshes, sharded batch/tile codecs, multi-host drive.
 
 The reference is single-threaded scalar code with no parallel tier
-(SURVEY.md §2); everything here is designed for TPU meshes from scratch.
+(SURVEY.md §2); everything here is designed for device meshes from scratch.
 """
 
 from .mesh import DATA_AXIS, TILE_AXIS, make_mesh

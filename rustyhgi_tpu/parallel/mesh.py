@@ -34,9 +34,9 @@ def make_mesh(
 ) -> Mesh:
     """Build a (data, tile) mesh over the given (default: all) devices.
 
-    ``shape=None`` puts all devices on the data axis.  On a real slice the
-    device order from ``jax.devices()`` follows the physical torus, so a
-    contiguous tile axis rides ICI neighbours.
+    ``shape=None`` puts all devices on the data axis.  The cards of one
+    host are joined all to all by NVLink, so the mesh shape follows the
+    workload alone, not the device order.
     """
     devices = list(devices if devices is not None else jax.devices())
     if shape is None:

@@ -24,7 +24,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import pyramid
+from ..ops import planar, pyramid
+from ..ops.engine import choose_engine
 from ..ops.quantizers import QuantizationLevel, quantize_fn
 from .mesh import DATA_AXIS, TILE_AXIS, make_mesh
 
@@ -61,83 +62,16 @@ _SHARD_CACHE = {}
 _SHARD_CACHE_MAX = 64
 
 
+def _local_batch(planes, mesh: Mesh) -> int:
+    """Planes each device processes: the engine policy's batch size."""
+    return max(1, planes.shape[0] // mesh.devices.size)
+
+
 def _cache_put(key, fn):
     if len(_SHARD_CACHE) >= _SHARD_CACHE_MAX:
         _SHARD_CACHE.pop(next(iter(_SHARD_CACHE)))
     _SHARD_CACHE[key] = fn
     return fn
-
-
-def _check_override(engine, supported, levels, h, w, quant, predictor):
-    """Validate an explicit engine override — raise, never fall back."""
-    ok = engine == "xla" or supported(levels, h, w, quant, predictor)
-    if not ok:
-        raise ValueError(
-            f"engine={engine!r} does not cover levels={levels}, "
-            f"shape=({h}, {w}), quantizer={quant!r}, "
-            f"predictor={predictor!r}"
-        )
-    return engine
-
-
-def _engine_for(levels, h, w, quant, predictor, force_pallas=False,
-                engine="auto") -> str:
-    """Per-shard engine: "planar" | "pallas" | "xla" (HGICodec policy).
-
-    All engines are oracle-bit-exact, so mesh-shape byte-invariance is
-    engine-independent.  The planar-XLA engine (ops.planar — fastest
-    measured, chip_probe xlaplanar) is plain XLA, so it runs COMPILED
-    on every backend and composes with shard_map with no vma caveats —
-    the CPU test mesh therefore exercises the production engine
-    directly.  The fused Pallas kernel remains reachable on TPU meshes
-    via HGICodec parity and with ``force_pallas=True`` (tests run it in
-    interpret mode over the virtual mesh — VERDICT r4 #3).
-
-    ``engine`` != "auto" is an explicit user override (CLI --engine):
-    it validates coverage and raises rather than silently falling back.
-    """
-    from ..ops import pallas_codec, planar
-
-    if engine != "auto":
-        supported = (
-            planar.supported_planar if engine == "planar"
-            else pallas_codec.supported
-        )
-        return _check_override(
-            engine, supported, levels, h, w, quant, predictor
-        )
-    if force_pallas and pallas_codec.supported(levels, h, w, quant, predictor):
-        return "pallas"
-    if not force_pallas and planar.supported_planar(
-        levels, h, w, quant, predictor
-    ):
-        return "planar"
-    if (
-        not force_pallas
-        and jax.default_backend() == "tpu"
-        and pallas_codec.supported(levels, h, w, quant, predictor)
-    ):
-        return "pallas"
-    return "xla"
-
-
-def _check_vma(use_pallas: bool) -> bool:
-    """shard_map's varying-mesh-axes checker setting for this body.
-
-    The r4 build disabled the checker wholesale around the Pallas engine
-    because pallas_call emitted un-annotated out_shapes.  The kernels now
-    annotate every out_shape with the input's vma
-    (ops.pallas_codec._vma), so the checker stays ON — including on the
-    production TPU route (ADVICE r4 #3; validated on hardware by
-    ``chip_probe.py sharded``).  The one remaining exception is
-    INTERPRET-mode pallas (CPU tests forcing the kernel onto a virtual
-    mesh): jax's pallas HLO interpreter builds internal dynamic_slice
-    indices without vma and trips the checker from inside
-    (jax 0.9.0 hlo_interpreter.py:466) — not reachable in production.
-    """
-    from ..ops.pallas_codec import _interpret
-
-    return not (use_pallas and _interpret())
 
 
 def encode_batch_sharded(
@@ -147,7 +81,6 @@ def encode_batch_sharded(
     mesh: Optional[Mesh] = None,
     with_histogram: bool = False,
     predictor: str = "crossed",
-    force_pallas: bool = False,
     engine: str = "auto",
 ):
     """Encode a [B, H, W] uint8 batch sharded over the mesh.
@@ -180,9 +113,9 @@ def encode_batch_sharded(
     h, w = images.shape[-2:]
     # Resolve the engine BEFORE the cache key: "auto" and an explicit
     # override resolving to the same engine share one executable.
-    engine = _engine_for(
-        levels, h, w, quant, predictor, force_pallas=force_pallas,
-        engine=engine,
+    engine = choose_engine(
+        engine, levels, h, w, quant, predictor,
+        batch=_local_batch(images, mesh),
     )
     key = (
         "enc", _mesh_key(mesh), images.shape,
@@ -196,15 +129,7 @@ def encode_batch_sharded(
 
         def local_encode(imgs):
             if engine == "planar":
-                from ..ops import planar
-
                 grids, recons = planar.encode_plane_planar(
-                    imgs, levels, quant, predictor
-                )
-            elif engine == "pallas":
-                from ..ops import pallas_codec
-
-                grids, recons = pallas_codec.encode_plane_pallas(
                     imgs, levels, quant, predictor
                 )
             else:
@@ -226,7 +151,6 @@ def encode_batch_sharded(
                 mesh=mesh,
                 in_specs=(spec,),
                 out_specs=(spec, spec, P()),
-                check_vma=_check_vma(engine == "pallas"),
             )
         )
         _cache_put(key, fn)
@@ -243,7 +167,6 @@ def decode_batch_sharded(
     levels: int,
     mesh: Optional[Mesh] = None,
     predictor: str = "crossed",
-    force_pallas: bool = False,
     engine: str = "auto",
 ):
     """Decode a [B, H, W] uint8 residual-grid batch sharded over the mesh."""
@@ -252,9 +175,9 @@ def decode_batch_sharded(
     grids = jnp.asarray(grids, jnp.uint8)
     spec = _batch_pspec()
     h, w = grids.shape[-2:]
-    engine = _engine_for(
-        levels, h, w, None, predictor, force_pallas=force_pallas,
-        engine=engine,
+    engine = choose_engine(
+        engine, levels, h, w, None, predictor,
+        batch=_local_batch(grids, mesh),
     )
     key = ("dec", _mesh_key(mesh), grids.shape, levels, predictor, engine)
     fn = _SHARD_CACHE.get(key)
@@ -265,13 +188,7 @@ def decode_batch_sharded(
 
         def local_decode(gs):
             if engine == "planar":
-                from ..ops import planar
-
                 return planar.decode_plane_planar(gs, levels, predictor)
-            if engine == "pallas":
-                from ..ops import pallas_codec
-
-                return pallas_codec.decode_plane_pallas(gs, levels, predictor)
             return jax.vmap(
                 lambda g: pyramid.decode_plane(g, levels, pred)
             )(gs)
@@ -279,42 +196,11 @@ def decode_batch_sharded(
         fn = jax.jit(
             jax.shard_map(
                 local_decode, mesh=mesh, in_specs=(spec,), out_specs=spec,
-                check_vma=_check_vma(engine == "pallas"),
             )
         )
         _cache_put(key, fn)
     grids = jax.device_put(grids, NamedSharding(mesh, spec))
     return fn(grids)
-
-
-def _sub_engine_for(levels, h, w, quant, predictor, force_pallas=False,
-                    engine="auto") -> str:
-    """Subband analogue of :func:`_engine_for` (kernel has a VMEM gate)."""
-    from ..ops import pallas_codec, planar
-
-    if engine != "auto":
-        supported = (
-            planar.supported_planar if engine == "planar"
-            else pallas_codec.supported_subbands
-        )
-        return _check_override(
-            engine, supported, levels, h, w, quant, predictor
-        )
-    if force_pallas and pallas_codec.supported_subbands(
-        levels, h, w, quant, predictor
-    ):
-        return "pallas"
-    if not force_pallas and planar.supported_planar(
-        levels, h, w, quant, predictor
-    ):
-        return "planar"
-    if (
-        not force_pallas
-        and jax.default_backend() == "tpu"
-        and pallas_codec.supported_subbands(levels, h, w, quant, predictor)
-    ):
-        return "pallas"
-    return "xla"
 
 
 def encode_subbands_batch_sharded(
@@ -323,7 +209,6 @@ def encode_subbands_batch_sharded(
     quantization: QuantizationLevel,
     mesh: Optional[Mesh] = None,
     predictor: str = "crossed",
-    force_pallas: bool = False,
     engine: str = "auto",
 ):
     """Subband-layout encode of a [B, H, W] batch sharded over the mesh.
@@ -340,9 +225,9 @@ def encode_subbands_batch_sharded(
     spec = _batch_pspec()
     quant = quantize_fn(quantization)
     h, w = images.shape[-2:]
-    engine = _sub_engine_for(
-        levels, h, w, quant, predictor, force_pallas=force_pallas,
-        engine=engine,
+    engine = choose_engine(
+        engine, levels, h, w, quant, predictor,
+        batch=_local_batch(images, mesh),
     )
     key = (
         "encsb", _mesh_key(mesh), images.shape,
@@ -356,15 +241,7 @@ def encode_subbands_batch_sharded(
 
         def local(imgs):
             if engine == "planar":
-                from ..ops import planar
-
                 anchors, subbands, _ = planar.encode_subbands_planar(
-                    imgs, levels, quant, predictor, want_recon=False
-                )
-            elif engine == "pallas":
-                from ..ops import pallas_codec
-
-                anchors, subbands, _ = pallas_codec.encode_subbands_pallas(
                     imgs, levels, quant, predictor, want_recon=False
                 )
             else:
@@ -378,7 +255,6 @@ def encode_subbands_batch_sharded(
         fn = jax.jit(
             jax.shard_map(
                 local, mesh=mesh, in_specs=(spec,), out_specs=spec,
-                check_vma=_check_vma(engine == "pallas"),
             )
         )
         _cache_put(key, fn)
@@ -393,14 +269,11 @@ def decode_subbands_batch_sharded(
     levels: int,
     mesh: Optional[Mesh] = None,
     predictor: str = "crossed",
-    force_pallas: bool = False,
     engine: str = "auto",
 ):
     """Subband-direct decode of a sharded batch: -> [B, H, W] planes.
 
-    Engine per :func:`_sub_engine_for`: the planar-XLA subband-direct
-    decode on every backend; the Pallas repack+decode path only via
-    ``force_pallas=True``; the dyadic XLA path outside both envelopes.
+    Engine per :func:`rustyhgi_tpu.ops.engine.choose_engine`.
     """
     if mesh is None:
         mesh = make_mesh()
@@ -408,9 +281,9 @@ def decode_subbands_batch_sharded(
     subbands = [tuple(jnp.asarray(q, jnp.uint8) for q in qs) for qs in subbands]
     spec = _batch_pspec()
     h, w = tuple(shape)[-2:]
-    engine = _sub_engine_for(
-        levels, h, w, None, predictor, force_pallas=force_pallas,
-        engine=engine,
+    engine = choose_engine(
+        engine, levels, h, w, None, predictor,
+        batch=_local_batch(anchors, mesh),
     )
     key = (
         "decsb", _mesh_key(mesh), anchors.shape, tuple(shape),
@@ -424,15 +297,7 @@ def decode_subbands_batch_sharded(
 
         def local(a, s):
             if engine == "planar":
-                from ..ops import planar
-
                 return planar.decode_subbands_planar(
-                    a, s, (h, w), levels, predictor
-                )
-            if engine == "pallas":
-                from ..ops import pallas_codec
-
-                return pallas_codec.decode_subbands_pallas(
                     a, s, (h, w), levels, predictor
                 )
             return jax.vmap(
@@ -444,7 +309,6 @@ def decode_subbands_batch_sharded(
         fn = jax.jit(
             jax.shard_map(
                 local, mesh=mesh, in_specs=(spec, spec), out_specs=spec,
-                check_vma=_check_vma(engine == "pallas"),
             )
         )
         _cache_put(key, fn)

@@ -32,6 +32,8 @@ import struct
 
 import numpy as np
 
+from .imageio import load_image, save_image
+
 __all__ = [
     "THGIC_MAGIC",
     "encode_color",
@@ -48,16 +50,11 @@ _T_GDELTA = 1
 
 def load_rgb(path: str) -> np.ndarray:
     """Load an image file as uint8 [H, W, 3] RGB."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+    return load_image(path, "RGB")
 
 
 def save_rgb(path: str, rgb: np.ndarray) -> None:
-    from PIL import Image
-
-    Image.fromarray(np.ascontiguousarray(rgb, np.uint8), mode="RGB").save(path)
+    save_image(path, rgb, "RGB")
 
 
 def _forward(rgb_planes: np.ndarray, transform: int) -> np.ndarray:

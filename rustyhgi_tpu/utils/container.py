@@ -53,7 +53,7 @@ __all__ = [
 ]
 
 HGI_MAGIC = 0xBAAD_A555  # archive.rs:13
-THGI_MAGIC = 0x7B61_A555  # native container magic ("tpu" variant)
+THGI_MAGIC = 0x7B61_A555  # native .thgi container magic
 
 # Decompression-bomb guard: the largest single plane a hostile header may
 # declare (1 GPix ~= 1 GB of pixels).  Gigapixel images go through the
@@ -240,7 +240,7 @@ def read_hgi(data: bytes) -> Archive:
 
 _CODEC_DEFLATE = 0
 _CODEC_RANS = 1
-_CODEC_BITPACK = 2  # device-side Pallas bit-plane pack (fast mode)
+_CODEC_BITPACK = 2  # device bit-plane pack (ops.bitpack)
 _CODEC_RANS_MT = 3  # two independent rANS chunks, coded in parallel
 _CODEC_CTX = 4  # context-adaptive binary range coder (subband layout only)
 _CODEC_RANS_SHARED = 5  # rANS with an EXTERNAL shared freq table (multi-host)
@@ -415,7 +415,7 @@ def _entropy_candidate_jobs(
 
             jobs.append((_CODEC_RANS_TPU, lambda: encode_bytes(raw)))
         elif keep(_CODEC_BITPACK):
-            from ..ops.pallas_kernels import pack_bytes
+            from ..ops.bitpack import pack_bytes
 
             jobs.append(
                 (
@@ -710,7 +710,7 @@ def read_thgi_payload(data: bytes, freqs=None):
     elif tag == _CODEC_RANS_SHARED:
         raw = _shared_rans_decode(body, raw_size, freqs)
     elif tag == _CODEC_BITPACK:
-        from ..ops.pallas_kernels import unpack_bytes
+        from ..ops.bitpack import unpack_bytes
 
         raw = unpack_bytes(body, expected_n=raw_size).tobytes()
     elif tag == _CODEC_RANS_MT:

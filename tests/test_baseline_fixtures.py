@@ -7,7 +7,9 @@ configs additionally commit the archive bytes themselves (TIF is the
 cross-tool interop anchor — SURVEY.md §6).  A future environment with
 the reference Rust toolchain can verify interop one-shot against these
 artifacts; meanwhile they freeze the whole encode->container pipeline
-byte-for-byte (regenerate with tools/make_fixtures.py).
+byte-for-byte (regenerate with tools/make_fixtures.py).  The LENA input
+is rebuilt from its committed lossless archive; the other images come
+from the reference's res/ directory and skip without it.
 """
 
 import hashlib
@@ -19,9 +21,9 @@ import pytest
 
 from rustyhgi_tpu.models.codec import HGICodec
 from rustyhgi_tpu.utils.container import Archive, read_archive, write_archive
-from rustyhgi_tpu.utils.imageio import load_luma
 
-RES = "/root/reference/res"
+from conftest import lena_image, reference_image
+
 BASE = os.path.join(os.path.dirname(__file__), "golden", "baseline")
 
 with open(os.path.join(BASE, "manifest.json")) as f:
@@ -35,7 +37,10 @@ def sha(b) -> str:
 @pytest.mark.parametrize("name", sorted(MANIFEST))
 def test_baseline_config_rederives(name):
     entry = MANIFEST[name]
-    img = load_luma(os.path.join(RES, entry["image"]))
+    if entry["image"] == "LENA.TIF":
+        img = lena_image()
+    else:
+        img = reference_image(entry["image"])
     assert list(img.shape) == entry["input_shape"]
     assert sha(img.tobytes()) == entry["input_sha256"], (
         "input luma drifted (image decode changed)"

@@ -1,9 +1,11 @@
-"""Pallas device bit-pack stage tests (interpreter mode on CPU)."""
+"""Device bit-pack stage (ops.bitpack): round trips and the stored format."""
+
+import hashlib
 
 import numpy as np
 import pytest
 
-from rustyhgi_tpu.ops import pallas_kernels as pk
+from rustyhgi_tpu.ops import bitpack as pk
 
 
 def residual_like(rng, n):
@@ -26,6 +28,21 @@ def test_pack_roundtrip(rng, n):
     data = residual_like(rng, n)
     blob = pk.pack_bytes(data)
     assert np.array_equal(pk.unpack_bytes(blob), data)
+
+
+def test_pack_bytes_match_stored_format():
+    # Bytes written by the earlier device packer for this seeded stream;
+    # stored bitpack archives must keep reading, so the format is pinned.
+    rng = np.random.default_rng(123)
+    small = rng.integers(-8, 9, 5000) % 256
+    big = rng.integers(0, 256, 5000)
+    data = np.where(rng.random(5000) < 0.9, small, big).astype(np.uint8)
+    blob = pk.pack_bytes(data)
+    assert len(blob) == 5131
+    assert hashlib.sha256(blob).hexdigest() == (
+        "bfcec0646208e15d6e44a235aac4151afaf852d2f130dff9712e9710d0867378"
+    )
+    assert np.array_equal(pk.unpack_bytes(blob, expected_n=5000), data)
 
 
 def test_pack_compresses_smooth_blocks(rng):

@@ -311,3 +311,88 @@ def test_encode_tiled_fast_flag_validation(tmp_path):
     assert main(["encode-tiled", "-i", str(src), "-o", str(out), "--tile",
                  "8192", "--format", "thgi", "--fast"]) == 1
     assert not out.exists()
+
+
+@pytest.mark.parametrize("backend", ["oracle", "native"])
+@pytest.mark.parametrize("engine", ["planar", "xla"])
+def test_engine_needs_jax_backend(workdir, png, capsys, backend, engine):
+    """An explicit --engine with a host backend is refused, not ignored."""
+    rc = main(["encode", "-i", png, "-o", "e.hgi", "--backend", backend,
+               "--engine", engine])
+    assert rc == 1
+    assert f"--engine {engine} applies to --backend jax only" in (
+        capsys.readouterr().err
+    )
+    assert not os.path.exists("e.hgi")
+
+
+def test_pgm_roundtrip_without_pillow(workdir, monkeypatch, capsys):
+    """encode/decode/test on .pgm files never import Pillow."""
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_pil(name, *args, **kwargs):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("Pillow blocked for this test")
+        return real_import(name, *args, **kwargs)
+
+    img = synthetic_image(40, 24)
+    save_gray("in.pgm", img)
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    assert main(["encode", "-i", "in.pgm", "-o", "p.hgi", "-q", "lossless"]) == 0
+    assert main(["decode", "-i", "p.hgi", "-o", "out.pgm"]) == 0
+    assert main(["test", "in.pgm", "-q", "lossless", "-s", "_t"]) == 0
+    assert np.array_equal(load_luma("out.pgm"), img)
+    assert np.array_equal(load_luma("in_t.pgm"), img)
+    # Other formats name the missing library instead of failing obscurely.
+    assert main(["decode", "-i", "p.hgi", "-o", "out.png"]) == 1
+    assert "needs Pillow" in capsys.readouterr().err
+
+
+def test_pgm_reader_rejects_malformed(workdir):
+    with open("bad.pgm", "wb") as f:
+        f.write(b"P5\n4 4\n65535\n" + bytes(32))
+    with pytest.raises(ValueError, match="8-bit"):
+        load_luma("bad.pgm")
+    with open("short.pgm", "wb") as f:
+        f.write(b"P5\n# comment\n4 4\n255\n" + bytes(15))
+    with pytest.raises(ValueError, match="truncated"):
+        load_luma("short.pgm")
+    with open("ok.pgm", "wb") as f:
+        f.write(b"P5\n# comment\n4 4\n255\n" + bytes(range(16)))
+    assert np.array_equal(load_luma("ok.pgm"), np.arange(16).reshape(4, 4))
+
+
+def test_compile_cache_honours_env(monkeypatch):
+    import jax
+
+    from rustyhgi_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/jax")
+        jax.config.update("jax_compilation_cache_dir", "/untouched")
+        assert compile_cache.enable_compile_cache() == "/elsewhere/jax"
+        assert jax.config.jax_compilation_cache_dir == "/untouched"
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    import jax
+
+    import rustyhgi_tpu
+    from rustyhgi_tpu.utils import compile_cache
+
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(
+        rustyhgi_tpu.__file__
+    )))
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = os.path.join(checkout, ".cache", "jax")
+        assert compile_cache.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -34,11 +34,17 @@ def test_lossy_color_per_channel_bound(quant, bound):
 
 def test_lossless_picks_no_worse_transform():
     # lossless races green-delta vs identity and keeps the smaller, so it
-    # can never lose to either alone; on a real photo green-delta wins
-    from rustyhgi_tpu.utils import color as c
-    from rustyhgi_tpu.utils.color import load_rgb
+    # can never lose to either alone; when channels share the photo's
+    # structure (three tone curves of LENA) green-delta wins
+    from conftest import lena_image
 
-    rgb = load_rgb("/root/reference/res/fullhd.jpg")[:192, :256]
+    from rustyhgi_tpu.utils import color as c
+
+    y = lena_image()[:192, :256].astype(np.int64)
+    rgb = np.stack(
+        [y, np.clip(y * 7 // 8 + 16, 0, 255), np.clip(y * 3 // 4 + 40, 0, 255)],
+        axis=2,
+    ).astype(np.uint8)
     codec = HGICodec(3, "lossless")
     planes = __import__("numpy").moveaxis(rgb, 2, 0)
     blob = encode_color(codec, rgb)

@@ -42,8 +42,8 @@ def test_fuzz_roundtrip_vs_oracle(trial):
     err = np.abs(image.astype(np.int32) - decoded.astype(np.int32))
     assert err.max() <= linear_error(quant), ctx
 
-    # Planar engine (the TPU production route; on CPU it compiles the
-    # same XLA graph) — same trial must be bit-identical too.
+    # Planar engine (the auto route; on CPU it compiles the same XLA
+    # program the GPU runs) — same trial must be bit-identical too.
     from rustyhgi_tpu.ops import planar
     from rustyhgi_tpu.ops.quantizers import quantize_fn
 

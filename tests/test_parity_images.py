@@ -5,8 +5,6 @@ residual statistics (smooth gradients, edges, texture).  The JAX device
 path and the scalar C++ twin must agree bit-for-bit on both.
 """
 
-import os
-
 import numpy as np
 import pytest
 
@@ -18,16 +16,11 @@ needs_native = pytest.mark.skipif(
     not available(), reason="native library not built"
 )
 
-FULLHD = "/root/reference/res/fullhd.jpg"
-
-
 @pytest.fixture(scope="module")
 def fullhd():
-    if not os.path.exists(FULLHD):
-        pytest.skip("fullhd fixture not available")
-    from rustyhgi_tpu.utils.imageio import load_luma
+    from conftest import reference_image
 
-    return load_luma(FULLHD)
+    return reference_image("fullhd.jpg")
 
 
 @needs_native

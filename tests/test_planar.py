@@ -1,9 +1,7 @@
-"""Planar-XLA engine (ops.planar) — oracle bit-exactness + routing.
+"""Planar engine (ops.planar) — oracle bit-exactness + routing.
 
-The planar engine compiles the Pallas kernel's planar dataflow as plain
-XLA (no pallas_call), so unlike the kernel it runs COMPILED on CPU too —
-these tests exercise the very graph the TPU executes, not an
-interpreter stand-in.
+The planar engine is plain XLA, so these tests compile and run the same
+program the GPU runs.
 """
 
 import numpy as np
@@ -72,13 +70,7 @@ def test_planar_batch_matches_per_plane(rng):
 
 
 def test_planar_large_batch_chunked(rng):
-    """Batches above _BATCH_CHUNK run chunk-serial — bytes unchanged.
-
-    The chunking exists because XLA spills the fused planar working set
-    beyond ~8 planes (chip_probe planarbatch); 20 planes exercises both
-    paths (2 full lax.map chunks of 8 + a remainder-4 vmap,
-    concatenated).
-    """
+    """A 20-plane batch in one program — bytes unchanged per plane."""
     import jax
 
     imgs = rng.integers(0, 256, (20, 40, 48), dtype=np.uint8)
@@ -126,26 +118,6 @@ def test_backend_planar_out_of_envelope_raises():
         codec.encode_plane(np.zeros((16, 16), np.uint8))
 
 
-def test_pallas_subband_coalesced_form_still_bit_exact(rng):
-    # The coalesced per-level output form is non-default (measured
-    # slower on v5e — see pallas_codec._SB_COALESCE_DEFAULT) but stays
-    # a supported toggle; keep it from rotting.
-    import jax
-
-    from rustyhgi_tpu.ops import pallas_codec
-
-    img = rng.integers(0, 256, (48, 64), dtype=np.uint8)
-    quant = quantize_fn(QuantizationLevel.MEDIUM)
-    a_ref, s_ref, _ = pyramid.encode_subbands(jax.numpy.asarray(img), 3, quant)
-    a, s, _ = pallas_codec.encode_subbands_pallas(
-        img, 3, quant, "crossed", coalesce=True
-    )
-    assert np.array_equal(np.asarray(a), np.asarray(a_ref))
-    for quads, quads_ref in zip(s, s_ref):
-        for q, q_ref in zip(quads, quads_ref):
-            assert np.array_equal(np.asarray(q), np.asarray(q_ref))
-
-
 def test_planar_large_plane_matches_xla_engine(rng):
     """A ~2 MPix single plane (beyond oracle-speed territory): the
     planar engine must match the independently-trusted XLA engine
@@ -164,15 +136,14 @@ def test_planar_engine_exports_and_reloads(rng):
     """jax.export round-trip of the production (planar) encoder.
 
     Serving ships serialized StableHLO artifacts (HGICodec.export_*);
-    the planar graph (incl. its lax.map batch chunking) must survive
+    the planar graph must survive
     serialize -> deserialize -> call with identical bytes.
     """
     from rustyhgi_tpu.models.codec import load_exported
 
     imgs = rng.integers(0, 256, (20, 48, 64), dtype=np.uint8)
     codec = HGICodec(3, "medium", backend="planar")
-    # Batched 20-plane shape: the serialized graph contains the lax.map
-    # chunking AND the remainder concat (20 = 2 full chunks + 4).
+    # A batched 20-plane shape: the serialized graph vmaps the planes.
     blob = codec.export_encoder(imgs.shape)
     fn = load_exported(blob)
     grids, recons = fn(imgs)
@@ -187,9 +158,5 @@ def test_planar_engine_exports_and_reloads(rng):
 
 
 def test_planar_supported_has_no_width_cap():
-    # The Pallas kernel caps canvas width (VMEM); planar must not.
-    from rustyhgi_tpu.ops import pallas_codec
-
     q = quantize_fn(QuantizationLevel.LOSSLESS)
-    assert not pallas_codec.supported(4, 64, 32768, q, "crossed")
     assert planar.supported_planar(4, 64, 32768, q, "crossed")

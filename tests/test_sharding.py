@@ -55,40 +55,35 @@ def test_sharded_encode_mesh_shape_invariance(batch, golden, shape):
 
 
 @pytest.mark.parametrize("shape", [(8, 1), (4, 2)])
-def test_sharded_pallas_engine_multi_device(batch, golden, shape):
-    """The fused Pallas kernel INSIDE shard_map on a >1-device mesh.
+@pytest.mark.parametrize("engine", ["planar", "xla"])
+def test_sharded_engine_multi_device(batch, golden, shape, engine):
+    """Each engine INSIDE shard_map on a >1-device mesh.
 
-    On TPU meshes the sharded tier routes the production Pallas engine,
-    but the real chip is a 1-device mesh — so without this test the
-    kernel x multi-device-mesh combination would never execute anywhere
-    (VERDICT r4 #3/#4).  force_pallas runs the kernel in interpret mode
-    over the 8-virtual-device mesh; bytes must equal the XLA route's
-    (mesh-shape- and engine-invariance in one assertion).
+    Bytes must equal the single-device golden (mesh-shape- and
+    engine-invariance in one assertion).
     """
     mesh = make_mesh(shape)
     grids, recons, hist = encode_batch_sharded(
         batch, 3, QuantizationLevel.MEDIUM, mesh=mesh, with_histogram=True,
-        force_pallas=True,
+        engine=engine,
     )
     assert np.array_equal(np.asarray(grids), golden[0])
     assert np.array_equal(np.asarray(recons), golden[1])
     want = np.bincount(golden[0].reshape(-1), minlength=256)
     assert np.array_equal(np.asarray(hist), want)
-    decoded = decode_batch_sharded(
-        golden[0], 3, mesh=mesh, force_pallas=True
-    )
+    decoded = decode_batch_sharded(golden[0], 3, mesh=mesh, engine=engine)
     assert np.array_equal(np.asarray(decoded), golden[1])
 
 
 @pytest.mark.parametrize("shape", [(8, 1), (4, 2)])
-@pytest.mark.parametrize("force_pallas", [False, True])
-def test_sharded_subband_encode_decode(batch, shape, force_pallas):
+@pytest.mark.parametrize("engine", ["planar", "xla"])
+def test_sharded_subband_encode_decode(batch, shape, engine):
     """Sharded subband encode -> subband-direct decode, engine-invariant.
 
     The .thgi subband payload produced on a mesh must match the
-    single-device XLA payload byte-for-byte for every (mesh shape,
+    single-device dyadic payload byte-for-byte for every (mesh shape,
     engine) combination, and the subband-direct decode must reconstruct
-    the closed-loop recon (VERDICT r4 #6 multi-device surface).
+    the closed-loop recon.
     """
     import jax
     import jax.numpy as jnp
@@ -106,15 +101,14 @@ def test_sharded_subband_encode_decode(batch, shape, force_pallas):
     )(jnp.asarray(batch))
     mesh = make_mesh(shape)
     a, s = encode_subbands_batch_sharded(
-        batch, 3, QuantizationLevel.MEDIUM, mesh=mesh,
-        force_pallas=force_pallas,
+        batch, 3, QuantizationLevel.MEDIUM, mesh=mesh, engine=engine,
     )
     assert np.array_equal(np.asarray(a), np.asarray(ga))
     for qs1, qs2 in zip(s, gs):
         for x, y in zip(qs1, qs2):
             assert np.array_equal(np.asarray(x), np.asarray(y))
     dec = decode_subbands_batch_sharded(
-        a, s, batch.shape[1:], 3, mesh=mesh, force_pallas=force_pallas
+        a, s, batch.shape[1:], 3, mesh=mesh, engine=engine
     )
     assert np.array_equal(np.asarray(dec), np.asarray(grecon))
 
